@@ -1,12 +1,13 @@
-"""bpvo_tpu — a TPU-native semi-dense direct visual odometry framework.
+"""bpvo_tpu — a semi-dense direct visual odometry framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of halismai/bpvo:
-dense-descriptor photometric alignment (intensity + Bit-Planes census channels and
-the full descriptor zoo), coarse-to-fine IRLS Gauss-Newton pose estimation over
-SE(3) with Huber/Tukey M-estimators, keyframing, trajectory/point-cloud outputs,
-dataset + stereo front-ends, KITTI evaluation — plus a distributed layer (sharded
-template points and windowed photometric bundle adjustment over device-mesh
-collectives) the reference does not have.
+JAX/XLA implementation of the capabilities of halismai/bpvo, run on an
+NVIDIA GPU (or the CPU): dense-descriptor photometric alignment (intensity +
+Bit-Planes census channels and the full descriptor zoo), coarse-to-fine IRLS
+Gauss-Newton pose estimation over SE(3) with Huber/Tukey M-estimators,
+keyframing, trajectory/point-cloud outputs, dataset + stereo front-ends,
+KITTI evaluation — plus a distributed layer (sharded template points and
+windowed photometric bundle adjustment over device-mesh collectives) the
+reference does not have.
 
 Public API mirrors the reference's single entry point
 ``VisualOdometry::addFrame(image, disparity) -> Result`` (reference bpvo/vo.h:31-105).
@@ -14,12 +15,13 @@ Public API mirrors the reference's single entry point
 
 import os as _os
 
-# TPU's default matmul precision runs f32 contractions as bf16-multiply
-# passes; the resulting ~1e-3 relative noise in pose compositions, image
-# convolutions, and the GN normal equations wrecks convergence (measured 141
-# GN iterations/frame vs ~20 with full f32).  Everything here is latency-bound
-# 6-dof estimation, not throughput-bound training — default to full f32.
-# Override with BPVO_MATMUL_PRECISION=default to opt out.
+# On the GPU the default matmul precision may run f32 contractions in TF32,
+# which keeps ~3 decimal digits of each operand; the resulting ~1e-3 relative
+# noise in pose compositions, the matmul-form pyramid and the GN normal
+# equations keeps the convergence tests from firing and multiplies the GN
+# iteration count.  Everything here is latency-bound 6-dof estimation, not
+# throughput-bound training — default to full f32.  Override with
+# BPVO_MATMUL_PRECISION=default to opt out.
 _prec = _os.environ.get("BPVO_MATMUL_PRECISION", "float32")
 if _prec != "default":
     import jax as _jax

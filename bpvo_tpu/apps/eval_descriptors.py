@@ -99,6 +99,8 @@ def main():
     ap.add_argument("--out", "-o", default="")
     ap.add_argument("--numframes", "-n", type=int, default=-1)
     args = ap.parse_args()
+    from bpvo_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     print(json.dumps(run(args.config, args.out, args.numframes), indent=2))
 
 

@@ -7,7 +7,7 @@ generated config at eval_kitti.cc:17-40, trajectory writing at :42-59) and
 
 Usage:
   python -m bpvo_tpu.apps.eval_kitti run  --root ~/data/kitti/dataset \
-      --out results/ [--seqs 0 1 2] [--descriptor Intensity] [--stereo TpuSGM]
+      --out results/ [--seqs 0 1 2] [--descriptor Intensity] [--stereo DeviceSGM]
   python -m bpvo_tpu.apps.eval_kitti eval --gt ~/data/kitti/dataset/poses \
       --results results/
 """
@@ -23,7 +23,7 @@ from bpvo_tpu.utils import debug
 
 
 def make_kitti_config(root: str, sequence: int, descriptor: str = "Intensity",
-                      stereo: str = "TpuSGM") -> ConfigFile:
+                      stereo: str = "DeviceSGM") -> ConfigFile:
     """Config analogous to the reference's generated one (eval_kitti.cc:17-40)."""
     cf = ConfigFile()
     cf.set("Dataset", "kitti")
@@ -47,7 +47,7 @@ def make_kitti_config(root: str, sequence: int, descriptor: str = "Intensity",
 
 
 def run_sequences(root: str, out_dir: str, seqs, descriptor="Intensity",
-                  stereo="TpuSGM", num_frames=-1):
+                  stereo="DeviceSGM", num_frames=-1):
     from bpvo_tpu.config import AlgorithmParameters
     from bpvo_tpu.data.kitti import KittiDataset
     from bpvo_tpu.vo.odometry import VisualOdometry
@@ -104,7 +104,7 @@ def main():
     r.add_argument("--out", required=True)
     r.add_argument("--seqs", type=int, nargs="*", default=list(range(11)))
     r.add_argument("--descriptor", default="Intensity")
-    r.add_argument("--stereo", default="TpuSGM")
+    r.add_argument("--stereo", default="DeviceSGM")
     r.add_argument("--numframes", type=int, default=-1)
     e = sub.add_parser("eval")
     e.add_argument("--gt", required=True)
@@ -113,6 +113,8 @@ def main():
     e.add_argument("--plot-prefix", default="",
                    help="also write devkit _tl/_rl/_ts/_rs plot-data files")
     args = ap.parse_args()
+    from bpvo_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     if args.cmd == "run":
         run_sequences(args.root, args.out, args.seqs, args.descriptor,
                       args.stereo, args.numframes)

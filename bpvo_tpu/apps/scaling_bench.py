@@ -60,6 +60,8 @@ def main():
     ap.add_argument("--rows", type=int, default=240)
     ap.add_argument("--cols", type=int, default=320)
     args = ap.parse_args()
+    from bpvo_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     print(json.dumps(run_scaling(args.points, args.rows, args.cols), indent=2))
 
 

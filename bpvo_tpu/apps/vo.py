@@ -30,6 +30,8 @@ def main():
                     help="display loop (GUI if available, else PNG dumps "
                          "under <output>_frames/)")
     args = ap.parse_args()
+    from bpvo_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
 
     app = VoApp.from_config(
         args.config,

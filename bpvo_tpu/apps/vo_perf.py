@@ -74,6 +74,8 @@ def main():
     ap.add_argument("--output", "-o", default="")
     ap.add_argument("--numframes", "-n", type=int, default=-1)
     args = ap.parse_args()
+    from bpvo_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     summary = run_perf(args.config, args.output, args.numframes)
     print(json.dumps(summary, indent=2))
 

@@ -1,12 +1,12 @@
 """Configuration: ``AlgorithmParameters`` + ``ConfigFile``.
 
-TPU-native counterpart of the reference's ``bpvo/types.h:171-413`` (parameter struct,
+Counterpart of the reference's ``bpvo/types.h:171-413`` (parameter struct,
 defaults at types.cc:31-66, config-file ctor at types.cc:69-109) and
 ``bpvo/config_file.{h,cc}`` (``Key = Value`` text format, ``#``/``%`` comments,
 case-insensitive keys).  Field names keep the reference's camelCase spelling so the
 reference's ``conf/*.cfg`` files parse unchanged.
 
-Additional TPU-specific fields (not in the reference) are grouped at the bottom of
+Additional fields (not in the reference) are grouped at the bottom of
 ``AlgorithmParameters``: point-capacity bucketing (XLA needs static shapes — the
 reference's "truncate to multiple of 16" at template_data.cc:85-89 becomes "pad to a
 fixed per-level capacity with a valid mask"), and device-mesh controls for the
@@ -174,7 +174,7 @@ class AlgorithmParameters:
     maxTestLevel: int = 0
     withNormalization: bool = True
 
-    # ---- TPU-native additions (no reference analogue) ----
+    # ---- additions (no reference analogue) ----
     # Fixed point capacity at pyramid level 0; level l uses capacity >> (2*l),
     # clamped to pointCapacityMin.  XLA requires static shapes, so selection is
     # top-K into this bucket + valid mask instead of a variable-length vector.

@@ -111,6 +111,22 @@ def inverse(T):
     return jnp.concatenate([top, bottom], axis=-2)
 
 
+def orthonormalize(T):
+    """Pull the rotation block of a rigid transform back onto SO(3) with one
+    Newton step of the polar decomposition, R <- R (3I - R^T R) / 2.
+
+    A pose built by composing many float32 increments gathers a rounding
+    bias in its scale (~1e-7 per product); the rigid inverse (R^T) then
+    stops being the inverse, and trajectories chained through keyframes
+    amplify it.  One step squares the error, so calling this after each
+    composition holds R orthonormal to float32 precision."""
+    R = T[..., :3, :3]
+    RtR = jnp.einsum("...ji,...jk->...ik", R, R)
+    eye = jnp.eye(3, dtype=T.dtype)
+    R = 0.5 * jnp.einsum("...ij,...jk->...ik", R, 3.0 * eye - RtR)
+    return T.at[..., :3, :3].set(R)
+
+
 def rotation_to_euler_deg(T):
     """Rotation matrix -> (roll, pitch, yaw)-style Euler angles in degrees.
 

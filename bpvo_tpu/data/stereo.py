@@ -7,10 +7,10 @@ matcher: OpenCV BlockMatching / SGBM, vendored SGM (Yamaguchi) and RSGM
 Two families here:
   * Host matchers (``CvBlockMatching``, ``CvSGBM``): OpenCV-backed, bit-parity
     with the reference's BM/SGBM path.
-  * TPU-native matchers (``TpuBlockMatching``, ``TpuSGM``): re-designed as
+  * Device matchers (``DeviceBlockMatching``, ``DeviceSGM``): re-designed as
     batched cost-volume computation in jnp — the (D, H, W) SAD/census volume is
-    a stack of shifted absolute differences + box filter (fused VPU work), the
-    winner-take-all + sub-pixel parabola is a reduction, and SGM's scanline
+    a stack of shifted absolute differences + box filter (fused elementwise
+    work), the winner-take-all + sub-pixel parabola is a reduction, and SGM's scanline
     dynamic programming runs as ``lax.scan`` over image columns with the (H, D)
     per-step message vectorized across rows — replacing the reference's
     hand-written SSE row loops (rsgm.cc) with compiler-scheduled vector code.
@@ -76,7 +76,7 @@ class CvSGBM(StereoAlgorithm):
 
 
 # ---------------------------------------------------------------------------
-# TPU-native matchers
+# device matchers
 # ---------------------------------------------------------------------------
 
 def _box_filter(x, radius: int):
@@ -150,7 +150,7 @@ def _block_matching(L, R, num_disparities: int, radius: int,
     return disp
 
 
-class TpuBlockMatching(StereoAlgorithm):
+class DeviceBlockMatching(StereoAlgorithm):
     """Batched SAD block matching on the accelerator."""
 
     def __init__(self, cf: ConfigFile = None, num_disparities: int = 128,
@@ -181,13 +181,11 @@ class TpuBlockMatching(StereoAlgorithm):
 
 
 # ---------------------------------------------------------------------------
-# TPU SGM: census-based matching cost + multi-direction scanline aggregation
+# SGM: census-based matching cost + multi-direction scanline aggregation
 # ---------------------------------------------------------------------------
 
-@partial(jax.jit, static_argnames=("num_disparities", "p1", "p2",
-                                   "use_pallas"))
-def _sgm(L, R, num_disparities: int, p1: float, p2: float,
-         use_pallas: bool = False):
+@partial(jax.jit, static_argnames=("num_disparities", "p1", "p2"))
+def _sgm(L, R, num_disparities: int, p1: float, p2: float):
     """Semi-global matching over 4 scanline directions.
 
     Cost: hamming distance of 3x3 census codes (like the reference's vendored
@@ -206,9 +204,9 @@ def _sgm(L, R, num_disparities: int, p1: float, p2: float,
     cR = census_planes(R.astype(jnp.float32))
 
     # cost per disparity, SEQUENTIALLY via lax.map: the unrolled
-    # stack-of-128 variant materializes ~2 GB of (8, H, W) roll
-    # intermediates at KITTI scale and OOMs HBM at full frame width
-    # (probed round 4); the map keeps peak memory at ~2 census stacks
+    # stack-of-D variant materializes D shifted (8, H, W) census stacks at
+    # once (~2 GB at KITTI width and D=128); the map keeps peak memory at
+    # ~2 census stacks
     col = jnp.arange(W)[None, :]
 
     def cost_at(d):
@@ -216,36 +214,37 @@ def _sgm(L, R, num_disparities: int, p1: float, p2: float,
         return jnp.where(col < d, 8.0, ham)
 
     cost = jnp.moveaxis(jax.lax.map(cost_at, jnp.arange(D)), 0, -1)  # (H,W,D)
-
-    if use_pallas:
-        from bpvo_tpu.ops.pallas import sgm_kernel
-        a = sgm_kernel.aggregate_4dir(cost, p1, p2)
-        return _wta_subpixel(a, D)
     return _wta_subpixel(_aggregate_4dir_scan(cost, p1, p2), D)
 
 
-def _aggregate_4dir_scan(cost, p1: float, p2: float):
-    """lax.scan lowering of the 4-direction SGM aggregation (one tiny XLA
-    step per scanline position; the Pallas whole-direction alternative is
-    ops/pallas/sgm_kernel.aggregate_4dir — compared on device in
-    docs/PALLAS_TPU.json sgm_aggregate4_*)."""
+def _aggregate_scanline(cost_seq, p1: float, p2: float):
+    """One SGM direction: cost_seq (T, B, D), scanned along T with B parallel
+    scanlines, Lr(t, d) = C(t, d) + min(Lr(t-1, d), Lr(t-1, d+-1) + p1,
+    min_d' Lr(t-1, d') + p2) - min_d' Lr(t-1, d')."""
     import jax
     import jax.numpy as jnp
 
-    def aggregate(cost_seq):
-        """cost_seq (T, B, D): scan along T, B = batch of parallel scanlines."""
-        def step(prev, c):
-            # prev (B, D)
-            m = jnp.min(prev, axis=-1, keepdims=True)
-            up = jnp.concatenate([prev[:, :1] + p1, prev[:, :-1] + p1], axis=-1)
-            dn = jnp.concatenate([prev[:, 1:] + p1, prev[:, -1:] + p1], axis=-1)
-            best = jnp.minimum(jnp.minimum(prev, up),
-                               jnp.minimum(dn, m + p2))
-            out = c + best - m
-            return out, out
-        init = cost_seq[0]
-        _, agg = jax.lax.scan(step, init, cost_seq[1:])
-        return jnp.concatenate([init[None], agg], axis=0)
+    def step(prev, c):
+        # prev (B, D)
+        m = jnp.min(prev, axis=-1, keepdims=True)
+        up = jnp.concatenate([prev[:, :1] + p1, prev[:, :-1] + p1], axis=-1)
+        dn = jnp.concatenate([prev[:, 1:] + p1, prev[:, -1:] + p1], axis=-1)
+        best = jnp.minimum(jnp.minimum(prev, up), jnp.minimum(dn, m + p2))
+        out = c + best - m
+        return out, out
+    init = cost_seq[0]
+    _, agg = jax.lax.scan(step, init, cost_seq[1:])
+    return jnp.concatenate([init[None], agg], axis=0)
+
+
+def _aggregate_4dir_scan(cost, p1: float, p2: float):
+    """lax.scan lowering of the 4-direction SGM aggregation: one small XLA
+    step per scanline position, vectorized over the perpendicular axis and
+    the disparity axis."""
+    import jax.numpy as jnp
+
+    def aggregate(cost_seq):   # (T, B, D), scanned along T
+        return _aggregate_scanline(cost_seq, p1, p2)
 
     # left->right and right->left (scan over W, batch over H)
     c_lr = jnp.swapaxes(cost, 0, 1)                        # (W, H, D)
@@ -262,10 +261,9 @@ def _wta_subpixel(a, D: int):
     """Winner-take-all over the disparity axis + parabolic sub-pixel.
 
     The neighbor costs c(best-1), c(best), c(best+1) are extracted with
-    compare-select reductions instead of ``take_along_axis``: on v5e the
-    three (H, W, D) gathers measured 21-27 ms at KITTI/D=128 (the LARGEST
-    single SGM stage, scripts/profile_sgm.py round 5) while masked-sum
-    passes are plain VPU streams."""
+    compare-select reductions over the disparity axis instead of three
+    ``take_along_axis`` gathers: the masked sums are plain elementwise
+    streams that fuse with the argmin pass."""
     import jax.numpy as jnp
     best = jnp.argmin(a, axis=-1)
     bm1 = jnp.clip(best - 1, 0, D - 1)
@@ -283,17 +281,9 @@ def _wta_subpixel(a, D: int):
     return jnp.where(best > 0, disp, -1.0)
 
 
-class TpuSGM(StereoAlgorithm):
+class DeviceSGM(StereoAlgorithm):
     def __init__(self, cf: ConfigFile = None, num_disparities: int = 128,
-                 p1: float = 2.0, p2: float = 8.0, use_pallas: bool = None):
-        if use_pallas is None:
-            # measured default (docs/PALLAS_TPU.json sgm_aggregate4_*): the
-            # whole-direction Pallas kernel aggregates 4.0x faster than the
-            # per-step lax.scan lowering on device (5.89 vs 23.73 ms at
-            # 376x640x64); on CPU the kernel would run in interpret mode, so
-            # the scan path stays the host default
-            import jax
-            use_pallas = jax.default_backend() == "tpu"
+                 p1: float = 2.0, p2: float = 8.0):
         if cf is not None:
             num_disparities = cf.get("numberOfDisparities", num_disparities, int)
             # reference SGM penalties are in census-weighted units
@@ -303,36 +293,34 @@ class TpuSGM(StereoAlgorithm):
             # p1=2, p2=8 minimizes MAE + bad-pixel fraction across scenes)
             p1 = cf.get("sgmP1", p1, float)
             p2 = cf.get("sgmP2", p2, float)
-            use_pallas = cf.get("sgmUsePallas", use_pallas, bool)
         self._D = num_disparities
         self._p1 = p1
         self._p2 = p2
-        self._use_pallas = use_pallas
 
     def run(self, left, right):
         import jax.numpy as jnp
         d = _sgm(jnp.asarray(left), jnp.asarray(right), self._D, self._p1,
-                 self._p2, self._use_pallas)
+                 self._p2)
         return np.asarray(d)
 
     def as_fn(self):
         """Jittable ``(left, right) -> disparity`` closure (DeviceVO
         stereo_fn): SGM runs inside the VO step's keyframe branch."""
-        D, p1, p2, up = self._D, self._p1, self._p2, self._use_pallas
-        return lambda L, R: _sgm(L, R, D, p1, p2, up)
+        D, p1, p2 = self._D, self._p1, self._p2
+        return lambda L, R: _sgm(L, R, D, p1, p2)
 
 
 def create_stereo_algorithm(cf: ConfigFile) -> StereoAlgorithm:
     """Factory on the ``StereoAlgorithm`` key (stereo_algorithm.cc:20-85).
-    The reference names map to host matchers; ``TpuBlockMatching``/``TpuSGM``
-    select the accelerator-native ones."""
+    The reference names map to host matchers; ``DeviceBlockMatching`` /
+    ``DeviceSGM`` select the accelerator ones."""
     name = cf.get("StereoAlgorithm", "BlockMatching", str).lower()
     if name in ("blockmatching", "bm"):
         return CvBlockMatching(cf)
     if name in ("sgbm", "semiglobalblockmatching"):
         return CvSGBM(cf)
-    if name in ("sgm", "semiglobalmatching", "rsgm", "tpusgm"):
-        return TpuSGM(cf)
-    if name in ("tpublockmatching", "tpubm"):
-        return TpuBlockMatching(cf)
+    if name in ("sgm", "semiglobalmatching", "rsgm", "devicesgm"):
+        return DeviceSGM(cf)
+    if name in ("deviceblockmatching", "devicebm"):
+        return DeviceBlockMatching(cf)
     raise ValueError(f"unknown stereo algorithm {name!r}")

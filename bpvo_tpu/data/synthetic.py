@@ -448,8 +448,8 @@ class SyntheticStereoPlaneDataset(SyntheticPlaneDataset):
         kw.setdefault("texture", "noise")
         super().__init__(*args, **kw)
         if stereo_algorithm is None:
-            from bpvo_tpu.data.stereo import TpuBlockMatching
-            stereo_algorithm = TpuBlockMatching(num_disparities=48,
+            from bpvo_tpu.data.stereo import DeviceBlockMatching
+            stereo_algorithm = DeviceBlockMatching(num_disparities=48,
                                                 sad_window=9)
         self._stereo = stereo_algorithm
 

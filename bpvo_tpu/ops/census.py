@@ -1,11 +1,11 @@
 """Census transform and bit-plane extraction.
 
-TPU-native counterpart of the reference's ``bpvo/census.{h,cc}`` (3x3 census with
+Counterpart of the reference's ``bpvo/census.{h,cc}`` (3x3 census with
 ``neighbor >= center`` comparisons packed into one byte, census.cc:42-91) and the
 bit-extraction half of ``bpvo/bitplanes_descriptor.cc:37-57``.
 
 The reference processes 16 pixels per SSE instruction; here the whole image is one
-vectorized compare-and-select per neighbor, fused by XLA on the VPU — and the
+vectorized compare-and-select per neighbor, fused by XLA into elementwise code — and the
 "pack to u8 then unpack bits" round trip is *optional*: ``census_planes`` produces
 the 8 comparison planes directly as float channels, which is what the Bit-Planes
 descriptor actually consumes.  ``census`` (packed u8) is kept for parity/testing.

@@ -1,6 +1,6 @@
 """Dense descriptor zoo.
 
-TPU-native counterpart of the reference's descriptor framework
+Counterpart of the reference's descriptor framework
 (``bpvo/dense_descriptor.{h,cc}`` factory at dense_descriptor.cc:38-90, default
 saliency at :92-100) and its concrete descriptors:
 
@@ -210,8 +210,9 @@ def latch(I, num_bytes: int = 1, half_ssd_size: int = 1,
     the measured pathology (109 iters/frame, 0.68 m ATE,
     docs/DESCRIPTOR_EVAL.md round 4).
 
-    Re-designed for TPU: the per-pixel SSDs are computed with shifted whole-image
-    squared differences + a box filter, so each channel is a few fused VPU ops.
+    Re-designed for the accelerator: the per-pixel SSDs are computed with
+    shifted whole-image squared differences + a box filter, so each channel is
+    a few fused elementwise ops.
     Shifts are edge-clamped (no wrap-around contamination near borders).
     """
     I = I.astype(jnp.float32)

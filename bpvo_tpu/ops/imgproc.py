@@ -1,13 +1,13 @@
 """Image-processing kernels: gradients, saliency, NMS, Gaussian smoothing, pyrDown.
 
-TPU-native counterpart of the reference's ``bpvo/imgproc.{h,cc}`` (saliency
+Counterpart of the reference's ``bpvo/imgproc.{h,cc}`` (saliency
 ``gradientAbsoluteMagnitude`` at imgproc.cc:33-142, ``IsLocalMax`` 3x3 NMS at
 imgproc.h:93-165, Eigen ``xgradient/ygradient`` at imgproc.h:216-265, ``imsmooth``
 at imgproc.cc:166-178) and of ``cv::pyrDown`` used by ``bpvo/image_pyramid.cc:43-50``.
 
 All functions are pure jnp on float32 arrays shaped ``(..., H, W)``; channel and
 batch dimensions broadcast, so the reference's per-channel ``parallel_for`` loops
-become one fused XLA op over the leading axes.  Convolution-style ops use the VPU
+become one fused XLA op over the leading axes.  Convolution-style ops run
 via XLA ``conv_general_dilated``; the 2D stencils here are tiny so XLA fuses them
 into neighboring elementwise work.
 """
@@ -125,9 +125,9 @@ def _sep_conv2d(I, ky: np.ndarray, kx: np.ndarray):
     """Separable 2D correlation with reflect-101 borders on (..., H, W).
 
     Implemented as shifted slice-and-accumulate rather than
-    ``conv_general_dilated``: single-channel stencils don't map onto the MXU,
-    and on v5e the slice form measures ~4x faster than the conv form (it stays
-    on the VPU and fuses into one pass per axis).
+    ``conv_general_dilated``: a single-channel stencil has no channel
+    contraction for a matrix unit, and the slice form fuses into one
+    elementwise pass per axis.
     """
     ry, rx = len(ky) // 2, len(kx) // 2
     Ip = _reflect_pad(I, ry, rx)
@@ -166,9 +166,8 @@ _PYR_KERNEL = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
 def _filter_decimate_matrix(n: int, stride: int, kernel: tuple) -> np.ndarray:
     """Banded (ceil(n/stride), n) matrix: filter (reflect-101 borders) fused
     with stride-``stride`` decimation.  Applying it per axis as a matmul runs
-    the whole pyramid stage on the MXU — XLA lowers strided slices like
-    ``I[::2, ::2]`` to gathers that measure ~1 ms/frame on v5e, while these
-    two small matmuls are microseconds."""
+    the whole pyramid stage as two small dense products instead of a
+    filter pass followed by a strided ``I[::2, ::2]`` slice."""
     m = -(-n // stride)
     M = np.zeros((m, n), np.float32)
     k = np.asarray(kernel, np.float64)

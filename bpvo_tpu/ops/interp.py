@@ -1,6 +1,6 @@
 """Sub-pixel sampling of descriptor channels at warped image points.
 
-TPU-native counterpart of the reference's ``bpvo/photo_error.cc`` interpolation
+Counterpart of the reference's ``bpvo/photo_error.cc`` interpolation
 engine (the active scalar implementation at photo_error.cc:336-459 supporting
 Linear / Cosine / Cubic / CubicHermite, coefficient formulas at :267-334) and of
 ``bpvo/interp_util.h``'s ``BilinearInterp``.
@@ -8,8 +8,7 @@ Linear / Cosine / Cubic / CubicHermite, coefficient formulas at :267-334) and of
 The irregular access ``I1(warp(x_i))`` is the one genuinely scattered read in the
 whole pipeline.  Here it is expressed as flat ``jnp.take`` gathers over the
 row-major image (4 gathers for linear/cosine, 16 for the cubic family), which XLA
-lowers to TPU gather ops; a Pallas fused variant lives in
-``bpvo_tpu/ops/pallas/irls_kernel.py``.
+lowers to device gather ops and fuses with the interpolation arithmetic.
 
 Out-of-bounds points are clamped before the gather and zeroed by the valid mask,
 reproducing the reference's ``valid`` semantics (photo_error.cc:344-363) — except
@@ -27,10 +26,9 @@ import jax.numpy as jnp
 from bpvo_tpu.types import InterpolationType
 
 # gather strategy for the warped sampling: "window" = one lax.gather of a
-# 2x2/4x4 neighborhood per point; "flat" = 4/16 independent flat takes.
-# Measured on v5e: flat takes are ~6x faster end-to-end (windowed 2x2 slices
-# lower to strided scalar loads in Mosaic; flat row-major takes vectorize).
-# Override with BPVO_GATHER=window.
+# 2x2/4x4 neighborhood per point; "flat" = 4/16 independent flat takes
+# (row-major takes with one index per tap, which vectorize without strided
+# window slices).  Override with BPVO_GATHER=window.
 GATHER_MODE = os.environ.get("BPVO_GATHER", "flat")
 
 
@@ -92,8 +90,7 @@ def _gather_window(channels, yi, xi, size: int):
 
     channels (C, H, W), yi/xi (N,) int32 top-left corners -> (N, C, size, size).
     A single windowed gather replaces the 4 (bilinear) / 16 (cubic) independent
-    flat gathers — each gather op costs ~0.4 ms at N=16k on v5e, so this is the
-    single biggest saving in the warped-sampling hot path.
+    flat gathers, trading gather ops for a strided window read.
     """
     import jax
     starts = jnp.stack([yi, xi], axis=-1)  # (N, 2)
@@ -182,9 +179,9 @@ def sample(channels, u, v, valid, method: InterpolationType = InterpolationType.
 # Inside the GN loop the channels are CONSTANT across iterations; only the
 # sample coordinates change.  Pre-shifting the image once per level turns the
 # per-iteration 4 (bilinear) / 16 (cubic) independent gathers into ONE
-# ``jnp.take`` on a (H*W, T*C) array — each gathered row is a contiguous
-# 4*T*C-byte DMA, which measures ~2.2x faster than separate flat takes on v5e
-# and scales with channel count for free (the whole (T*C) row costs one index).
+# ``jnp.take`` on a (H*W, T*C) array — each gathered row is one contiguous
+# 4*T*C-byte read, and the cost scales with channel count for free (the whole
+# (T*C) row costs one index).
 
 def _tap_offsets(method: InterpolationType):
     if method in (InterpolationType.LINEAR, InterpolationType.COSINE):
@@ -198,10 +195,8 @@ class PackedTaps(NamedTuple):
     clamps keep every p + shift in range).
 
     With ``pair_packed`` the row holds T*C/2 f32 words, each the bitcast of
-    two adjacent bf16 taps — halves the gathered row bytes while keeping the
-    f32 memory layout the TPU gathers efficiently (a plain bf16 array
-    gathers SLOWER on v5e; both measured, docs/PALLAS_TPU.json /
-    PERFORMANCE.md).  Like C/H/W, the flag is consumed at trace time — close
+    two adjacent bf16 taps — halves the gathered row bytes while keeping an
+    f32 gather layout.  Like C/H/W, the flag is consumed at trace time — close
     over a PackedTaps rather than passing it as a jit argument."""
     data: jnp.ndarray   # (H*W, T*C) — or (H*W, T*C/2) f32 when pair_packed
     C: int

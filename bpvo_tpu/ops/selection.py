@@ -62,56 +62,16 @@ def select_pixels(saliency, disparity, capacity: int, *,
     ok &= bm
 
     score = jnp.where(ok, saliency, -jnp.inf).reshape(-1)
-    # TPU: approx_max_k (per-lane partial reduction + candidate top-k) is the
-    # hardware-native top-k — the exact lax.top_k sort over H*W scores was
-    # the single most expensive selection stage (1.44 ms at KITTI L0,
-    # docs/PERFORMANCE.md round 3).  Selection is a saliency heuristic, so a
-    # ~0.95-recall candidate set is semantically equivalent: the ~5% misses
-    # are near-threshold pixels swapped for other near-threshold pixels.
-    # BPVO_EXACT_TOPK=1 restores the exact path (and CPU always uses it).
-    import os as _os
-    if (jax.default_backend() == "tpu"
-            and _os.environ.get("BPVO_EXACT_TOPK", "0") != "1"):
-        vals, idx = jax.lax.approx_max_k(score, capacity,
-                                         recall_target=0.95)
-    else:
-        vals, idx = jax.lax.top_k(score, capacity)
+    vals, idx = jax.lax.top_k(score, capacity)
     valid = vals > -jnp.inf
     # re-sort the selected pixels into raster order: the per-iteration warped
     # gathers then hit the image nearly sequentially, which coalesces far
     # better than saliency order (the reference's scan-order selection had
-    # this property for free, template_data.cc:55-66).  After the sort the
-    # nv valid entries occupy positions [0, nv) (invalid keys map to
-    # INT_MAX), which the closed-form balance below relies on.
+    # this property for free, template_data.cc:55-66).  Invalid keys map to
+    # INT_MAX, so the valid points occupy slots [0, num_valid).
     order = jnp.argsort(jnp.where(valid, idx, jnp.iinfo(jnp.int32).max))
-    # Block-balanced redistribution: spread the nv valid points evenly over
-    # the K capacity slots (still in raster order, invalid padding
-    # interleaved).  The fused Pallas kernel (ops/pallas/gn_kernel.py) tiles
-    # points in POINT_BLOCK chunks and samples each chunk from a static-height
-    # row band; with valid compacted to the front, a half-full template packs
-    # all its points into the first half of the chunks and each chunk's row
-    # span ~doubles past the band (measured: 48-row spans at 8.5k/16k fill vs
-    # a 48-row band -> ~6% of points invalidated).  Even fill keeps every
-    # chunk's span ~rows/NB regardless of fill.  All downstream consumers
-    # reduce over masked points, so the order change is free.
-    #
-    # The mapping dest(i) = i*K//nv is inverted in CLOSED FORM (round 4 —
-    # the scatter+cumsum inverse cost ~0.6 ms of the 1.25 ms selection):
-    # slots [0, j) contain ceil(j*nv/K) of the valid entries, so slot j is
-    # occupied iff that count increases at j+1, its source is that count,
-    # and free slots take the invalid tail in order.
-    K = capacity
-    # j * nv must not overflow int32: K <= 46340 keeps it < 2^31.  Widen to
-    # int64 before raising this bound (ADVICE round 3).
-    assert K <= 46340, "block-balance slot computation would overflow int32"
-    j = jnp.arange(K)
-    nv = jnp.sum(valid).astype(jnp.int32)
-    occ_before = (j * nv + K - 1) // K          # ceil(j*nv/K), <= nv
-    occ_next = ((j + 1) * nv + K - 1) // K
-    occupied = occ_next > occ_before
-    src = jnp.where(occupied, occ_before, nv + (j - occ_before))
-    idx = idx[order[src]]
-    valid = occupied
+    idx = idx[order]
+    valid = valid[order]
     rows = (idx // W).astype(jnp.int32)
     cols = (idx % W).astype(jnp.int32)
     d = disparity.reshape(-1)[idx]

@@ -1,5 +1,5 @@
 """Windowed photometric bundle adjustment over a keyframe window, with the
-residual/block reductions shardable across a TPU device mesh.
+residual/block reductions shardable across a device mesh.
 
 No reference analogue: halismai/bpvo tracks frame-to-keyframe only and
 accumulates a trajectory (vo.cc:191, trajectory.cc:42-50).  This module adds
@@ -25,7 +25,7 @@ names as the distributed extension — using the same semi-dense machinery:
 Distribution: template points shard across the mesh point axis exactly like
 the frame-to-frame solver (bpvo_tpu/parallel/sharded.py); every device
 processes all edges over its point shard and one ``psum`` of the (M,M,6,6)
-block Hessian + (M,6) gradient + scale histogram per iteration rides ICI.
+block Hessian + (M,6) gradient + scale histogram per iteration crosses the mesh.
 """
 from __future__ import annotations
 

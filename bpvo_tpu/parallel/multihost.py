@@ -1,14 +1,11 @@
 """Multi-host initialization and mesh construction.
 
-No reference analogue (the reference is single-process, SURVEY.md §2.4).  On a
-TPU pod slice, call ``initialize()`` once per host process before any JAX use;
-``global_mesh()`` then builds a mesh spanning every chip of every host, and the
-point/keyframe shardings of ``bpvo_tpu.parallel`` ride ICI within a slice and
-DCN across hosts exactly as laid out by the mesh axes.
-
-Scaling layout for VO (BASELINE.md: >= 80% efficiency at 2+ hosts):
+No reference analogue (the reference is single-process, SURVEY.md §2.4).  For
+a multi-process run, call ``initialize()`` once per process before any JAX
+use; ``global_mesh()`` then builds a mesh spanning every device of every
+process, laid out by the mesh axes:
   - axis "points": template-point shard (frame tracking + BA reductions) —
-    keep within a host/ICI domain;
+    keep it within one host, where its per-iteration reductions are cheapest;
   - axis "kf": keyframe-window shard for BA at larger windows — this is the
     axis to place across hosts, since edges only couple neighboring keyframes
     and the psum'd block system is KBs.
@@ -29,8 +26,8 @@ KEYFRAME_AXIS = "kf"
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """``jax.distributed.initialize`` wrapper; no-ops for single-process runs
-    and under environments (TPU pods) where JAX auto-detects the topology."""
+    """``jax.distributed.initialize`` wrapper; no-op for single-process
+    runs."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(coordinator_address=coordinator_address,
@@ -45,9 +42,9 @@ def global_mesh(points_axis_size: Optional[int] = None,
 
     ``points_axis_size`` defaults to filling whatever ``kf_axis_size`` leaves.
     With multiple hosts, devices enumerate host-major, so a kf axis of
-    ``num_hosts`` places each keyframe shard on one host's chips — BA's
-    cross-keyframe psum then crosses DCN once per iteration while the dense
-    point reductions stay on ICI.
+    ``num_hosts`` places each keyframe shard on one host's devices — BA's
+    cross-keyframe psum then crosses hosts once per iteration while the
+    dense point reductions stay within a host.
     """
     devs = list(devices if devices is not None else jax.devices())
     n = len(devs)

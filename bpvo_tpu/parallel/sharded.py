@@ -3,7 +3,7 @@
 This layer has NO reference analogue — halismai/bpvo is single-process
 (SURVEY.md §2.4).  Its TBB ``parallel_reduce`` join over the H/G accumulation
 (reference linear_system_builder.cc:91-131) is mathematically an all-reduce;
-here the same reduction runs across TPU chips as ``jax.lax.psum`` inside
+here the same reduction runs across devices as ``jax.lax.psum`` inside
 ``jax.shard_map`` over a 1-D ``points`` mesh axis:
 
   - template points / pixels / Jacobians: sharded along the point axis
@@ -11,7 +11,7 @@ here the same reduction runs across TPU chips as ``jax.lax.psum`` inside
     warped samples locally — no halo exchange needed because the gather is
     random-access into the whole image)
   - per-iteration collectives: one fused psum of (histogram, H, g, f_sq,
-    n_good) — a few KB per step, riding ICI
+    n_good) — a few KB per step
   - the 6x6 solve and pose update are tiny and replicated on every device
 
 The robust scale (median of |r|) is the one globally-coupled statistic; it uses
@@ -106,8 +106,7 @@ def _linearize_sharded(tdata, channels, cam, T, scale, delta_scale,
     w = mestimator.compute_weights(opts.loss, r, valid[None, :], sigma)
     H, g, f_sq = linear_system.build(tdata.jacobians, r, w)
     H, g, f_sq = jax.lax.psum((H, g, f_sq), POINT_AXIS)
-    return (H, g, jnp.sqrt(f_sq), sigma, new_delta, w,
-            jnp.asarray(0, jnp.int32))
+    return H, g, jnp.sqrt(f_sq), sigma, new_delta, w
 
 
 def _gn_sharded_body(tdata, channels, cam, T_init, opts: gn.GNOptions):
@@ -130,7 +129,7 @@ def make_sharded_gn(mesh: Mesh, opts: gn.GNOptions):
         g=P(), g_tol=P(), scale=P(), delta_scale=P(),
         weights=P(None, POINT_AXIS), H=P(),
         num_iters=P(), status=P(), converged=P(), solver_ok=P(),
-        band_overflow=P(), T_best=P(), f_best=P())
+        T_best=P(), f_best=P())
 
     fn = jax.shard_map(
         partial(_gn_sharded_body, opts=opts),

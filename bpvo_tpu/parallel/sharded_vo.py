@@ -133,7 +133,7 @@ def make_sharded_vo(mesh: Mesh, K, baseline: float, image_size,
         T_delta=P(), last_weights=P(None, POINT_AXIS))
     out_spec = VOStepOutput(pose=P(), pose_world=P(), is_keyframe=P(),
                             reason=P(), iters=P(), f_norm=P(), frac_good=P(),
-                            H=P(), band_overflow=P())
+                            H=P())
 
     def init_body(image, disparity):
         channels = device_vo._compute_channels_pyr(

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from bpvo_tpu.core import se3
 from bpvo_tpu.solver import gauss_newton as gn
 from bpvo_tpu.solver import linear_system, mestimator
 from bpvo_tpu.vo import template_data as td_mod
@@ -43,7 +44,7 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
     T0 = jnp.asarray(T_init, f32)
     s, c = tdata.norm_scale, tdata.norm_center
 
-    H, g, f_norm, sigma, dscale, w, _oob = gn._linearize(
+    H, g, f_norm, sigma, dscale, w = gn._linearize(
         tdata, channels, cam, T0, jnp.asarray(1.0, f32),
         jnp.asarray(1e10, f32), opts)
     mu = tau * jnp.max(jnp.diag(H))
@@ -63,7 +64,7 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
         H_aug = st.H + st.mu * jnp.eye(6, dtype=f32)
         dp = linear_system.cholesky_solve_6x6(H_aug, st.g)
         dp = jnp.where(jnp.all(jnp.isfinite(dp)), dp, jnp.zeros_like(dp))
-        T_new = st.T @ warp_mod.params_to_pose(-dp, s, c)
+        T_new = se3.orthonormalize(st.T @ warp_mod.params_to_pose(-dp, s, c))
 
         # IRLS weights are held FIXED within an accept/reject cycle: the
         # candidate cost f_new is evaluated at the CURRENT sigma, so rho

@@ -3,8 +3,8 @@
 Counterpart of the reference's ``bpvo/linear_system_builder.{h,cc}`` +
 ``linear_system_builder_reduction.h``: the TBB ``parallel_reduce`` with SSE
 rank-updates of a packed upper-triangular H (linear_system_builder.cc:91-237,
-the DVO-SLAM-derived layout at :140-205) becomes a single einsum/matmul pair
-that XLA maps onto the MXU, plus a ``psum`` across devices in the sharded path
+the DVO-SLAM-derived layout at :140-205) becomes a single einsum/matmul pair,
+plus a ``psum`` across devices in the sharded path
 (bpvo_tpu/parallel) — mathematically identical to the TBB join at
 linear_system_builder.cc:96-101.
 
@@ -29,10 +29,10 @@ def build(J, r, w):
     rf = r.reshape(-1)
     wf = w.reshape(-1)
     Jw = Jf * wf[:, None]
-    # (6, M) @ (M, 6) on the MXU.  Precision.HIGHEST is essential on TPU: the
-    # default bf16-multiply passes leave ~1e-3-relative noise in H/g, which
-    # keeps the GN convergence tests from ever firing (measured 141
-    # iterations/frame vs ~20 with full f32 accumulation).
+    # (6, M) @ (M, 6) contractions.  Precision.HIGHEST keeps them in full
+    # float32: a reduced-precision product (TF32 on the GPU keeps ~3 decimal
+    # digits of each operand) leaves ~1e-3-relative noise in H/g, which keeps
+    # the GN convergence tests from ever firing.
     H = jnp.dot(Jw.T, Jf, preferred_element_type=jnp.float32,
                 precision=jax.lax.Precision.HIGHEST)
     g = jnp.dot(Jw.T, rf, preferred_element_type=jnp.float32,

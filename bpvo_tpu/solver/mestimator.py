@@ -4,7 +4,7 @@ Counterpart of the reference's ``bpvo/mestimator.{h,cc}`` (Huber k=1.345 / Tukey
 t=4.685 weight ops at mestimator.cc:35-61, SSE kernels at :242-385,
 ``AutoScaleEstimator`` at :417-490), ``bpvo/robust_loss.h`` (the wider weight-
 functor zoo at robust_loss.h:80-115) and ``bpvo/approximate_median.h`` +
-``bpvo/histogram.h`` (TPU-friendly histogram median).
+``bpvo/histogram.h`` (scatter-free histogram median).
 
 The scale is a *robust standard deviation* of the residuals,
   sigma = 1.4826 (1 + 5/(n-6)) median(|r_valid|),
@@ -111,8 +111,8 @@ def masked_median_sort(x, valid):
 def histogram_counts(x, valid, hi, bins: int):
     """Cumulative histogram by broadcast comparison instead of scatter-add.
 
-    TPU scatters with colliding indices serialize; the (bins, N) comparison
-    matrix is pure VPU work and ~2x faster at N=16k (and it psums across
+    Scatter-adds with colliding indices serialize; the (bins, N) comparison
+    matrix is plain elementwise work plus a reduction (and it psums across
     devices the same way the bincounts would).  Returns csum (bins,) where
     csum[b] = count of valid x_i <= edge_b, edges at
     (b+1) * hi / bins."""

@@ -1,4 +1,4 @@
-"""Core enums and result types for the TPU-native visual odometry framework.
+"""Core enums and result types for the visual odometry framework.
 
 Functional analogue of the reference's ``bpvo/types.h`` (enums at types.h:127-169,
 ``OptimizerStatistics`` at types.h:444-482, ``Result`` at types.h:489-569) — redesigned

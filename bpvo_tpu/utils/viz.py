@@ -40,7 +40,7 @@ class Viewer:
 
     With a working GUI (cv2 window + $DISPLAY), keys mirror the reference:
     ``p`` pause, ``q``/ESC quit, ``d`` dump the current frame to PNG.
-    Headless — the normal case on a TPU host — every ``dump_every``-th
+    Headless — the normal case on an accelerator host — every ``dump_every``-th
     rendered frame is written as a PNG under ``dump_dir`` instead, so the
     same run artifacts exist either way.
     """

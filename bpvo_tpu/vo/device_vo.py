@@ -2,8 +2,8 @@
 coarse-to-fine IRLS GN, keyframe decision, template rebuild, trajectory
 accumulation — as ONE pure jittable function with all state in device arrays.
 
-This is the TPU-native redesign of the reference's stateful host pipeline
-(``bpvo/vo.cc`` Impl::addFrame, vo.cc:125-224): where the reference swaps
+This is the device-resident redesign of the reference's stateful host
+pipeline (``bpvo/vo.cc`` Impl::addFrame, vo.cc:125-224): where the reference swaps
 unique_ptr frames and rebuilds templates on the host thread, here the keyframe
 machinery is ``lax.cond`` branches over a ``VOState`` pytree, so a frame costs
 zero host round-trips and whole sequences can run under ``lax.scan`` in a
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from bpvo_tpu.config import AlgorithmParameters
+from bpvo_tpu.core import se3
 from bpvo_tpu.ops import descriptors, imgproc, pyramid, selection
 from bpvo_tpu.solver import gauss_newton as gn
 from bpvo_tpu.types import KeyFramingReason
@@ -76,9 +77,6 @@ class VOStepOutput(NamedTuple):
     f_norm: jnp.ndarray       # (L,)
     frac_good: jnp.ndarray    # ()
     H: jnp.ndarray            # (6,6) finest-level Hessian
-    band_overflow: jnp.ndarray  # () int32 max points invalidated by the fused
-                                # kernel's row band across levels (telemetry;
-                                # 0 on the jnp linearize path)
 
 
 def _rigid_inverse(T):
@@ -126,7 +124,6 @@ def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
     T = T_init
     iters = [jnp.asarray(0, jnp.int32)] * n_levels
     fs = [jnp.asarray(0.0, jnp.float32)] * n_levels
-    boverflow = jnp.asarray(0, jnp.int32)
     if solver == "LevenbergMarquardt":
         from bpvo_tpu.solver import levenberg_marquardt as lm
         run_level = lm.run
@@ -137,25 +134,9 @@ def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
         lin = (linearize_factory(level, templates[level], channels_pyr[level],
                                  cams[level], opts_per_level[level])
                if linearize_factory is not None else None)
-        opts_l = opts_per_level[level]
-        ch_l = channels_pyr[level]
-        # the one-kernel GN loop (see pose_estimator.py) — never under a
-        # custom (sharded) linearization, whose psums must run in XLA.
-        # Since round 5 the FINEST level is eligible too (honest H/g/weights
-        # export; BPVO_L0_KERNEL=0 restores the XLA fine loop)
-        if (lin is None and solver == "GaussNewton"
-                and (level > max_test_level
-                     or gn.fine_level_kernel_enabled())
-                and gn.level_kernel_enabled()
-                and gn.level_kernel_supported(
-                    opts_l, ch_l.shape[0], ch_l.shape[1], ch_l.shape[2],
-                    templates[level].pixels.shape[1])):
-            st = gn.run_level_fused(templates[level], ch_l, cams[level], T,
-                                    opts_l)
-        else:
-            st = run_level(templates[level], ch_l, cams[level], T, opts_l,
-                           **({"linearize_fn": lin} if lin is not None
-                              else {}))
+        st = run_level(templates[level], channels_pyr[level], cams[level], T,
+                       opts_per_level[level],
+                       **({"linearize_fn": lin} if lin is not None else {}))
         # minNumPixelsToWork guard (branchless; reference types.h:352-357)
         enough = templates[level].num_valid >= min_points
         st = st._replace(T=jnp.where(enough, st.T, T),
@@ -163,8 +144,6 @@ def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
         T = st.T
         iters[level] = st.num_iters
         fs[level] = st.f_norm
-        if hasattr(st, "band_overflow"):
-            boverflow = jnp.maximum(boverflow, st.band_overflow)
         finest = st
     td = templates[max_test_level]
     n_good = jnp.sum(finest.weights > good_threshold)
@@ -173,7 +152,7 @@ def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
     denom = jnp.maximum(td.num_channels * td.num_valid, 1)
     frac = n_good.astype(jnp.float32) / denom.astype(jnp.float32)
     return (T, jnp.stack(iters), jnp.stack(fs), frac, finest.H,
-            finest.weights, boverflow)
+            finest.weights)
 
 
 def _coarse_cost(templates, channels_pyr, cams, T, opts, level=None):
@@ -273,7 +252,7 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
                                     state.T_delta @ state.T_kf, state.T_kf,
                                     opts_per_level[n_levels - 1])
                   if p.withMotionModel else state.T_kf)
-        T_est, iters, fs, frac, H, w_fine, boverflow = _estimate(
+        T_est, iters, fs, frac, H, w_fine = _estimate(
             state.templates, channels, cams, T_init, opts_per_level,
             p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
             p.poseEstimator, linearize_factory, count_reduce)
@@ -335,7 +314,7 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
                                              opts_per_level[n_levels - 1])
                            if p.withMotionModel
                            else jnp.eye(4, dtype=jnp.float32))
-            T2, it2, fs2, _frac2, _H2, w2_fine, _bo2 = _estimate(
+            T2, it2, fs2, _frac2, _H2, w2_fine = _estimate(
                 templates, channels, cams, T2_init,
                 opts_per_level, p.maxTestLevel, p.goodPointThreshold,
                 p.minNumPixelsToWork, p.poseEstimator, linearize_factory,
@@ -356,12 +335,12 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
         new_state, pose, it_out, fs_out = jax.lax.cond(
             is_kf, keyframe, no_keyframe, (state, channels, disparity, T_est))
 
-        pose_world = new_state.pose_world @ _rigid_inverse(pose)
+        pose_world = se3.orthonormalize(
+            new_state.pose_world @ _rigid_inverse(pose))
         new_state = new_state._replace(pose_world=pose_world)
         out = VOStepOutput(pose=pose, pose_world=pose_world,
                            is_keyframe=is_kf, reason=reason,
-                           iters=it_out, f_norm=fs_out, frac_good=frac, H=H,
-                           band_overflow=boverflow)
+                           iters=it_out, f_norm=fs_out, frac_good=frac, H=H)
         return new_state, out
 
     return step

@@ -5,7 +5,7 @@ Counterpart of the reference's ``bpvo/vo_pose_estimator.{h,cc}``
 vo_pose_estimator.cc:63-93; relaxed parameters for coarse levels;
 ``getFractionOfGoodPoints`` at :101-107).
 
-TPU design: the whole coarse-to-fine chain is ONE jitted XLA program — the
+Design: the whole coarse-to-fine chain is ONE jitted XLA program — the
 Python level loop is unrolled at trace time (levels have static shapes), so a
 frame's pose estimate is a single device dispatch with no host round-trips
 between levels.  Per-level statistics come back as small stacked arrays and are
@@ -131,7 +131,6 @@ def _estimate_all(templates: Tuple[TemplateData, ...],
     fs = [jnp.asarray(0.0, jnp.float32)] * n_levels
     gs = [jnp.asarray(0.0, jnp.float32)] * n_levels
     status = [jnp.asarray(gn.STATUS_MAX_ITERATIONS, jnp.int32)] * n_levels
-    boverflow = [jnp.asarray(0, jnp.int32)] * n_levels
 
     if solver == "LevenbergMarquardt":
         from bpvo_tpu.solver import levenberg_marquardt as lm
@@ -141,27 +140,8 @@ def _estimate_all(templates: Tuple[TemplateData, ...],
 
     finest = None
     for level in range(start_level, max_test_level - 1, -1):
-        opts_l = opts_per_level[level]
-        ch_l = channels[level]
-        K_l = templates[level].pixels.shape[1]
-        # the one-kernel GN (the whole IRLS loop in a single Pallas
-        # invocation — kills the ~0.3 ms/level scalar-chain overhead,
-        # docs/PERFORMANCE.md round 4).  Round 4 kept the finest level on
-        # the XLA loop because run_level_fused's weights/H were sentinels
-        # that Result consumes; the round-5 honest export lifted that, and
-        # the banded envelope covers the K=16384 L0 (BPVO_L0_KERNEL=0
-        # restores the XLA fine loop)
-        if (solver == "GaussNewton"
-                and (level > max_test_level
-                     or gn.fine_level_kernel_enabled())
-                and gn.level_kernel_enabled()
-                and gn.level_kernel_supported(opts_l, ch_l.shape[0],
-                                              ch_l.shape[1], ch_l.shape[2],
-                                              K_l)):
-            st = gn.run_level_fused(templates[level], ch_l, cams[level], T,
-                                    opts_l)
-        else:
-            st = run_level(templates[level], ch_l, cams[level], T, opts_l)
+        st = run_level(templates[level], channels[level], cams[level], T,
+                       opts_per_level[level])
         enough = templates[level].num_valid >= min_points
         st = st._replace(T=jnp.where(enough, st.T, T),
                          num_iters=jnp.where(enough, st.num_iters, 0))
@@ -170,16 +150,13 @@ def _estimate_all(templates: Tuple[TemplateData, ...],
         fs[level] = st.f_norm
         gs[level] = jnp.max(jnp.abs(st.g))
         status[level] = st.status
-        if hasattr(st, "band_overflow"):   # GNState only (LM has no kernel path)
-            boverflow[level] = st.band_overflow
         finest = st
 
     td = templates[max_test_level]
     frac = gn.fraction_of_good_points(
         finest.weights, td.num_channels, td.num_valid, good_threshold)
     return (T, jnp.stack(iters), jnp.stack(fs), jnp.stack(gs),
-            jnp.stack(status), frac, finest.H, finest.weights,
-            jnp.stack(boverflow))
+            jnp.stack(status), frac, finest.H, finest.weights)
 
 
 class PoseEstimator:
@@ -210,7 +187,7 @@ class PoseEstimator:
         """
         p = self._p
         n_levels = len(channels_pyr)
-        (T, iters, fs, gs, status, frac, H, w, boverflow) = _estimate_all(
+        (T, iters, fs, gs, status, frac, H, w) = _estimate_all(
             tuple(templates), tuple(channels_pyr), tuple(cams),
             jnp.asarray(T_init, jnp.float32), self._opts_for(n_levels),
             p.maxTestLevel, p.goodPointThreshold, _MIN_POINTS_PER_LEVEL,
@@ -220,7 +197,6 @@ class PoseEstimator:
 
         self._last_weights = w
         self._last_H = H
-        self._last_band_overflow = boverflow
         # one host sync materializes everything below
         T_np = np.asarray(T)
         self._last_frac = float(frac)
@@ -244,14 +220,6 @@ class PoseEstimator:
 
     def last_weights(self):
         return self._last_weights
-
-    def last_band_overflow(self) -> int:
-        """Max per-level count of points the fused Pallas kernel invalidated
-        for falling outside its row band during the last estimate (telemetry
-        for the band assumption, gn_kernel.py; 0 on the jnp path)."""
-        if getattr(self, "_last_band_overflow", None) is None:
-            return 0
-        return int(np.max(np.asarray(self._last_band_overflow)))
 
     def last_covariance(self) -> np.ndarray:
         """6x6 covariance = inverse of the final GN Hessian

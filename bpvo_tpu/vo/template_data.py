@@ -8,7 +8,7 @@ disparity gate -> back-projection -> Hartley normalization -> per-channel pixels
 ``bpvo/photo_error.{h,cc}`` (projection + interpolation + subtraction,
 photo_error.cc:336-459).
 
-TPU redesign: fixed capacity K per level with a valid mask instead of variable-N
+Redesign: fixed capacity K per level with a valid mask instead of variable-N
 vectors (XLA static shapes); the per-channel ``parallel_for`` loops become a
 channel axis; the entire residual evaluation is one fused jitted function.
 """

@@ -20,7 +20,7 @@ The reference's hand-expanded formula (rigid_body_warp.h:94-106) is this same
 expression; our tests check it against jax autodiff instead.
 
 All functions are batched over N points as (N, ...) arrays — the reference's
-six SSE column loops collapse into a handful of fused VPU expressions.
+six SSE column loops collapse into a handful of fused elementwise expressions.
 """
 from __future__ import annotations
 

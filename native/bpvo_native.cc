@@ -1,7 +1,7 @@
 // bpvo_tpu native runtime: multi-threaded frame loading/decoding pipeline and
 // binary PLY output.
 //
-// TPU-native counterpart of the reference's host runtime pieces:
+// Counterpart of the reference's host runtime pieces:
 //   - utils/dataset_loader_thread.{h,cc} + utils/bounded_buffer.h — producer
 //     thread + mutex/condvar circular buffer feeding the VO thread.  Here the
 //     single producer becomes a decode *pool* (N workers, in-order delivery

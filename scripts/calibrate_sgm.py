@@ -1,4 +1,4 @@
-"""Calibrate TpuSGM's census-hamming penalties (p1, p2) against exact synthetic
+"""Calibrate DeviceSGM's census-hamming penalties (p1, p2) against exact synthetic
 ground truth, with cv2 SGBM as the established-implementation oracle on the
 same pairs (VERDICT round-2 item 7; reference penalty scaling at
 /root/reference/utils/stereo_algorithm.cc:50-55 is in census-weighted units and
@@ -71,7 +71,7 @@ def run_sgbm(L, R):
 def main():
     pairs = {k: make_pair(k) for k in ("plane", "occluder")}
 
-    lines = ["# TpuSGM penalty calibration (round 3)", "",
+    lines = ["# DeviceSGM penalty calibration (round 3)", "",
              "Exact-GT synthetic stereo pairs (`scripts/calibrate_sgm.py`), "
              "cv2 SGBM as oracle on the same pixels.  Error = mean |d - gt| "
              "over pixels with valid output and in-range GT; bad = fraction "
@@ -95,7 +95,7 @@ def main():
                 continue
             tot = 0.0
             for name, (L, R, gt) in pairs.items():
-                alg = stereo.TpuSGM(num_disparities=D_MAX, p1=p1, p2=p2)
+                alg = stereo.DeviceSGM(num_disparities=D_MAX, p1=p1, p2=p2)
                 d = alg.run(L, R)
                 mae, bad, cov = errors(d, gt)
                 results[(p1, p2, name)] = (mae, bad, cov)
@@ -124,8 +124,8 @@ def main():
     lines += ["",
               f"**Chosen defaults: p1 = {best[0]}, p2 = {best[1]}** "
               "(minimum summed MAE + bad-fraction across scenes; wired into "
-              "`data/stereo.TpuSGM` and asserted by "
-              "`tests/test_data.py::test_tpusgm_calibrated_against_oracle`).",
+              "`data/stereo.DeviceSGM` and asserted by "
+              "`tests/test_data.py::test_sgm_calibrated_against_oracle`).",
               ""]
     md = Path(__file__).resolve().parents[1] / "docs" / "SGM_CALIBRATION.md"
     md.write_text("\n".join(lines))

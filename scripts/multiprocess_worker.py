@@ -11,7 +11,7 @@ Launched by tests/test_multiprocess.py as:
 
 No reference analogue — halismai/bpvo is single-process (SURVEY.md §2.4);
 this exercises the BASELINE.md multi-host scaling path on CPU, the same
-code path a TPU pod slice would take via jax.distributed auto-detection.
+code path a multi-process GPU run takes through jax.distributed.
 """
 import os
 import sys
@@ -116,7 +116,7 @@ def _mode_vo(info, pid):
 
 def _mode_ba(info, pid):
     """2-D (kf x points) windowed BA with the KEYFRAME axis spanning the two
-    processes (multihost.global_mesh kf_axis_size=2 = the cross-host/DCN
+    processes (multihost.global_mesh kf_axis_size=2 = the cross-host
     placement), parity vs a single-device 1x1-mesh run (VERDICT round-3
     item 5b)."""
     import numpy as np

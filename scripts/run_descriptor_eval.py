@@ -13,9 +13,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-# isolate solver differences from approximate-top-k recall noise in the
-# head-to-head tables (ADVICE r4); redundant on CPU, load-bearing on TPU
-os.environ.setdefault("BPVO_EXACT_TOPK", "1")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
@@ -124,8 +121,7 @@ def main():
         "compiled reference binary over the byte-identical on-disk corridor "
         "with the same algorithm config (ref_harness/).  LATCH uses the "
         "OpenCV learned triplet table (`bpvo_tpu/ops/latch_table.py`).  "
-        "Timing is host CPU (relative cost only; device rates live in "
-        "BENCH_*.json).",
+        "Timing is host CPU (relative cost only).",
         "",
         "## All descriptors (Gauss-Newton), ours vs reference",
         "",

@@ -7,7 +7,7 @@ from bpvo_tpu.config import ConfigFile
 from bpvo_tpu.data.dataset import (DatasetFrame, FileSequence,
                                    StereoCalibration, create_dataset)
 from bpvo_tpu.data.loader import DatasetLoaderThread
-from bpvo_tpu.data.stereo import (CvBlockMatching, TpuBlockMatching, TpuSGM,
+from bpvo_tpu.data.stereo import (CvBlockMatching, DeviceBlockMatching, DeviceSGM,
                                   create_stereo_algorithm)
 from bpvo_tpu.data.synthetic import SyntheticPlaneDataset
 
@@ -27,26 +27,26 @@ def make_stereo_pair(rows=96, cols=160, disp=6.0, seed=0):
 
 
 class TestStereo:
-    def test_tpu_block_matching_recovers_disparity(self):
+    def test_device_block_matching_recovers_disparity(self):
         L, R = make_stereo_pair(disp=6.0)
-        bm = TpuBlockMatching(num_disparities=32, sad_window=9)
+        bm = DeviceBlockMatching(num_disparities=32, sad_window=9)
         D = bm.run(L, R)
         valid = D[20:-20, 40:-20]
         valid = valid[valid > 0]
         assert len(valid) > 500
         assert abs(np.median(valid) - 6.0) < 0.5
 
-    def test_tpu_sgm_recovers_disparity(self):
+    def test_device_sgm_recovers_disparity(self):
         L, R = make_stereo_pair(disp=6.0)
-        sgm = TpuSGM(num_disparities=32)
+        sgm = DeviceSGM(num_disparities=32)
         D = sgm.run(L, R)
         valid = D[20:-20, 40:-20]
         valid = valid[valid > 0]
         assert len(valid) > 500
         assert abs(np.median(valid) - 6.0) < 0.5
 
-    def test_tpusgm_calibrated_against_oracle(self):
-        """Calibrated defaults (docs/SGM_CALIBRATION.md) must keep TpuSGM
+    def test_sgm_calibrated_against_oracle(self):
+        """Calibrated defaults (docs/SGM_CALIBRATION.md) must keep DeviceSGM
         within a stated band of exact GT on a slanted-plane pair where cv2
         SGBM also succeeds (VERDICT r2 item 7)."""
         import cv2
@@ -69,11 +69,11 @@ class TestStereo:
                                      blockSize=5, P1=200, P2=800,
                                      uniquenessRatio=10)
         mae_oracle = mae(sgbm.compute(L, R).astype(np.float32) / 16.0)
-        mae_tpu = mae(TpuSGM(num_disparities=32).run(
+        mae_sgm = mae(DeviceSGM(num_disparities=32).run(
             L.astype(np.float32), R.astype(np.float32)))
         assert mae_oracle < 0.5          # oracle succeeds on this scene
-        assert mae_tpu < 0.5, mae_tpu    # calibrated band
-        assert mae_tpu < 3.0 * mae_oracle, (mae_tpu, mae_oracle)
+        assert mae_sgm < 0.5, mae_sgm    # calibrated band
+        assert mae_sgm < 3.0 * mae_oracle, (mae_sgm, mae_oracle)
 
     def test_cv_block_matching(self):
         L, R = make_stereo_pair(disp=6.0)
@@ -88,11 +88,11 @@ class TestStereo:
 
     def test_factory(self):
         cf = ConfigFile()
-        cf.set("StereoAlgorithm", "TpuBlockMatching")
+        cf.set("StereoAlgorithm", "DeviceBlockMatching")
         cf.set("numberOfDisparities", 32)
-        assert isinstance(create_stereo_algorithm(cf), TpuBlockMatching)
+        assert isinstance(create_stereo_algorithm(cf), DeviceBlockMatching)
         cf.set("StereoAlgorithm", "sgm")
-        assert isinstance(create_stereo_algorithm(cf), TpuSGM)
+        assert isinstance(create_stereo_algorithm(cf), DeviceSGM)
 
 
 class TestSynthetic:

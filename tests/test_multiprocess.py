@@ -74,6 +74,6 @@ def test_two_process_full_sharded_vo():
 
 def test_two_process_ba_2d_kf_axis():
     """2-D (kf x points) windowed BA with the KEYFRAME axis crossing the
-    process boundary — the DCN placement of docs/SCALING_MODEL.md — matching
-    a single-device run (VERDICT round-3 item 5b)."""
+    process boundary — the cross-host placement of multihost.global_mesh —
+    matching a single-device run (VERDICT round-3 item 5b)."""
     _check_mode("ba")

@@ -262,10 +262,10 @@ class TestSelection:
         assert int(sel.num_valid) == 1
         assert (int(sel.rows[0]), int(sel.cols[0])) == (10, 10)
 
-    def test_block_balanced_layout(self):
-        """With capacity only part-filled, valid points must be spread evenly
-        across POINT_BLOCK-sized chunks in raster order (the fused Pallas
-        kernel's per-chunk row band relies on it, ops/pallas/gn_kernel.py)."""
+    def test_valid_points_first_in_raster_order(self):
+        """With capacity only part-filled, the valid points fill slots
+        [0, num_valid) in raster order (coalesced warped gathers) and the
+        padding slots after them are invalid."""
         H, W = 96, 128
         r = np.random.default_rng(7)
         sal = r.uniform(0, 1, (H, W)).astype(np.float32)
@@ -279,21 +279,15 @@ class TestSelection:
         nv = int(sel.num_valid)
         assert 0 < nv < cap  # part-filled, the interesting regime
         valid = np.asarray(sel.valid)
-        rows = np.asarray(sel.rows)
-        B = 1024
-        nb = cap // B
-        counts = [int(valid[b * B:(b + 1) * B].sum()) for b in range(nb)]
-        # even fill: each chunk within 2 of nv/nb
-        assert max(counts) - min(counts) <= 2, counts
-        # raster order preserved among valid points globally
-        vr = rows[valid]
-        vc = np.asarray(sel.cols)[valid]
-        ridx = vr.astype(np.int64) * W + vc
+        assert valid[:nv].all() and not valid[nv:].any()
+        ridx = (np.asarray(sel.rows)[:nv].astype(np.int64) * W
+                + np.asarray(sel.cols)[:nv])
         assert np.all(np.diff(ridx) > 0)
-        # per-chunk row spans ~ H/nb, not H/(nb*fill_fraction)
-        spans = [np.ptp(rows[b * B:(b + 1) * B][valid[b * B:(b + 1) * B]])
-                 for b in range(nb)]
-        assert max(spans) <= (H // nb) + 8, spans
+        # exactly the gated pixels inside the border
+        inner = np.zeros((H, W), bool)
+        inner[3:H - 4, 3:W - 4] = True
+        want = np.flatnonzero((sal >= 0.1) & inner)
+        np.testing.assert_array_equal(ridx, want)
 
     def test_capacity_overflow_keeps_most_salient(self):
         H, W = 32, 32

@@ -1,7 +1,7 @@
 """Stereo INSIDE the VO loop (VERDICT r4 item 2): the reference's primary
 KITTI operational mode is StereoDataset -> matcher -> VO (reference
 utils/dataset.cc:103-135, apps/eval_kitti.cc:17-40).  These tests drive that
-chain end-to-end on synthetic stereo pairs with a real matcher (TpuBM on
+chain end-to-end on synthetic stereo pairs with a real matcher (DeviceBM on
 small frames), through BOTH surfaces:
 
   * config -> create_dataset -> VisualOdometry (the host app path)
@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from bpvo_tpu import AlgorithmParameters, VisualOdometry
 from bpvo_tpu.core import se3
 from bpvo_tpu.data.dataset import create_dataset
-from bpvo_tpu.data.stereo import TpuBlockMatching
+from bpvo_tpu.data.stereo import DeviceBlockMatching
 from bpvo_tpu.data.synthetic import SyntheticStereoPlaneDataset
 
 
@@ -30,7 +30,7 @@ def make_stereo_config(tmp_path, n_frames=6):
         "SyntheticRows = 120\nSyntheticCols = 160\n"
         f"SyntheticNumFrames = {n_frames}\n"
         "SyntheticBaseline = 0.5\n"
-        "StereoAlgorithm = TpuBlockMatching\n"
+        "StereoAlgorithm = DeviceBlockMatching\n"
         "numberOfDisparities = 48\n"
         "SADWindowSize = 9\n"
         "uniquenessRatio = 10\n"
@@ -45,7 +45,7 @@ def make_stereo_config(tmp_path, n_frames=6):
 
 class TestStereoDatasets:
     def test_matcher_disparity_close_to_gt(self):
-        """The synthetic stereo pair is exact; TpuBM must recover the GT
+        """The synthetic stereo pair is exact; DeviceBM must recover the GT
         disparity to sub-pixel on most of the (textured) plane."""
         ds = SyntheticStereoPlaneDataset(rows=120, cols=160, n_frames=2,
                                          baseline=0.5,
@@ -80,7 +80,7 @@ class TestStereoDatasets:
             f"DataSetRootDirectory = {tmp_path}\n"
             "LeftImageFormat = left/%06d.png\n"
             "RightImageFormat = right/%06d.png\n"
-            "StereoAlgorithm = TpuBlockMatching\n"
+            "StereoAlgorithm = DeviceBlockMatching\n"
             "numberOfDisparities = 48\nSADWindowSize = 9\n"
             f"fx = {K[0, 0]}\nfy = {K[1, 1]}\ncx = {K[0, 2]}\n"
             f"cy = {K[1, 2]}\nbaseline = {ds0.calibration.baseline}\n")
@@ -153,7 +153,7 @@ class TestStereoVoLoop:
                                 parameterTolerance=1e-6, maxIterations=50,
                                 minValidDisparity=1, maxValidDisparity=48)
         calib = ds.calibration
-        bm = TpuBlockMatching(num_disparities=48, sad_window=9)
+        bm = DeviceBlockMatching(num_disparities=48, sad_window=9)
 
         vo_a = DeviceVO(calib.K, calib.baseline, ds.image_size, p,
                         stereo_fn=bm.as_fn())
